@@ -1,4 +1,4 @@
-"""bayesnmf_tpu — TPU-native Bayesian NMF with learned rank.
+"""bayesnmf_tpu — Bayesian NMF with learned rank, on accelerators via JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 jennalandy/bayesNMF R package: Gibbs sampling for M ≈ P diag(A) E with

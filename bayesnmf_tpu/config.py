@@ -1,6 +1,6 @@
 """Model specification and convergence control for bayesnmf_tpu.
 
-TPU-native re-design of the reference R package's model-spec layer:
+Re-design of the reference R package's model-spec layer:
   - model validity rules mirror /root/reference/R/bayesNMF_sampler.R:623-645
   - convergence control defaults mirror /root/reference/R/convergence.R:16-45
   - hyperprior defaults mirror /root/reference/R/setup.R:123-181
@@ -61,22 +61,11 @@ class ModelSpec:
     # conditional reuses Mhat_no_n, so it costs ~one extra K x G pass);
     # False reproduces the reference's kernel.
     exact_mh: bool = True
-    # Run the P+E MH sweeps as ONE fused Pallas kernel per Gibbs iteration
-    # (ops/pallas_sweeps.py) instead of ~12N XLA kernels. Pays off when
-    # per-kernel latency dominates (single chain, K*G small enough for the
-    # working set to stay in VMEM). Poisson+MH only.
-    fused_sweeps: bool = False
-    # Run the latent-count multinomial allocation (the conjugate-Gibbs hot
-    # op) as ONE VMEM-resident Pallas kernel with in-kernel TPU PRNG
-    # (ops/pallas_allocation.py) instead of the log2(N)-launch XLA tree.
-    # Poisson Gibbs (MH=False) path only; single-chain programs (the
-    # vmapped ensemble path keeps the XLA tree).
-    fused_allocation: bool = False
-    # Run the MH sweeps through the STREAMING Pallas reductions
-    # (ops/pallas_stream_sweeps.py): Mhat is recomputed per G-tile in VMEM
-    # instead of carried in HBM, cutting the per-column traffic to two
-    # data+E reads. The large-G ensemble regime (HBM-bound; config 5).
-    # Poisson + exact-MH only; mutually exclusive with fused_sweeps.
+    # Run the MH sweeps through the streaming GPU reductions
+    # (ops/pallas_stream_sweeps.py): each kernel block recomputes its Mhat
+    # tile in registers instead of reading a (K, G) Mhat from device
+    # memory, cutting the per-column traffic to two data+E reads. The
+    # large-G ensemble regime (config 5). Poisson + exact-MH only.
     stream_sweeps: bool = False
 
     def __post_init__(self):
@@ -106,24 +95,10 @@ class ModelSpec:
                 )
         if self.learning_rank and self.rank_method not in RANK_METHODS:
             raise ModelError(f"rank_method must be one of {RANK_METHODS}")
-        if self.fused_sweeps and not (self.likelihood == "poisson" and self.MH):
+        if self.stream_sweeps and not (
+                self.likelihood == "poisson" and self.MH and self.exact_mh):
             raise ModelError(
-                "fused_sweeps applies to the poisson+MH sampler only")
-        if self.fused_allocation and not (
-                self.likelihood == "poisson" and not self.MH):
-            raise ModelError(
-                "fused_allocation applies to the conjugate poisson Gibbs "
-                "sampler (MH=False) only")
-        if self.stream_sweeps:
-            if not (self.likelihood == "poisson" and self.MH
-                    and self.exact_mh):
-                raise ModelError(
-                    "stream_sweeps applies to the poisson + exact-MH "
-                    "sampler only")
-            if self.fused_sweeps:
-                raise ModelError(
-                    "stream_sweeps and fused_sweeps are mutually exclusive "
-                    "(VMEM-resident vs streaming kernels)")
+                "stream_sweeps applies to the poisson + exact-MH sampler only")
         if min(self.K, self.N, self.G) < 1:
             raise ModelError("K, N, G must be positive")
 

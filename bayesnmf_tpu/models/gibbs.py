@@ -48,8 +48,7 @@ def init_state(spec: ModelSpec, hp: dict, data, key, init_params=None,
     corresponding draws (advanced.qmd:182-318 contract).
 
     Jitted as ONE program (the dict structures of the override args are part
-    of the trace signature): eager per-op dispatch is pathologically slow on
-    remote-compile backends.
+    of the trace signature) rather than dispatched op by op.
     """
     k_prior, k_P, k_E, k_R, k_A, k_Z, k_s, k_next = jax.random.split(key, 8)
     prior = U.init_prior_params(spec, hp, k_prior)
@@ -107,8 +106,8 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
 
     ``record`` controls what the per-iteration sample_out carries:
       - 'metrics': the metrics row only (throughput mode — at huge G the
-        stacked E history dominates HBM, and XLA dead-code-eliminates the
-        unsampled tensors entirely);
+        stacked E history dominates device memory, and XLA
+        dead-code-eliminates the unsampled tensors entirely);
       - 'basic': P/E/A + metrics (default);
       - 'full': additionally prior params, sigmasq, and MH acceptance
         matrices, matching the reference's record_sample
@@ -131,107 +130,26 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
     if spec.needs_sigmasq:
         k_s = ks_all[_i]
     params = dict(state["params"])
+    prior = U.sample_prior_params(spec, hp, params, state["prior"], k_pp)
 
-    # Truncnormal exact hyper-updates ride INSIDE the fused kernel (their
-    # elementwise Metropolized-conjugate transitions plus the sweep uniforms
-    # come from the same single RNG launch); every other config keeps the
-    # host-graph prior sweep.
-    hyper_in_kernel = (spec.fused_sweeps and spec.prior == "truncnormal"
-                       and spec.exact_truncnorm_hypers)
-    if hyper_in_kernel:
-        prior = dict(state["prior"])
-    else:
-        prior = U.sample_prior_params(spec, hp, params, state["prior"], k_pp)
-
-    # Recompute Mhat fresh each iteration (one MXU matmul) so the rank-1
-    # updates inside the sweeps cannot accumulate f32 drift across thousands
-    # of iterations.
+    # Recompute Mhat fresh each iteration (one full-precision matmul) so the
+    # rank-1 updates inside the sweeps cannot accumulate f32 drift across
+    # thousands of iterations.
     Mh = m.mhat(params["P"], params["A"], params["E"])
 
     acc_P = state.get("acc_P")
     acc_E = state.get("acc_E")
-    # fused_sweeps implies the poisson+MH family (config validation); the
-    # accept-all flag is a kernel operand, so a traced per-chain flag (vmapped
-    # ensembles) takes the fused path too — vmap adds a grid dimension over
-    # chains to the one Pallas kernel.
-    fused = spec.fused_sweeps
     pois_red = None  # streaming metric reductions (stream_sweeps fixed-rank)
     if spec.likelihood == "poisson" and not spec.MH:
         params["P"] = U.sample_P_poisson_gibbs(spec, prior, params, k_P)
         params["E"] = U.sample_E_poisson_gibbs(spec, prior, params, params["P"], k_E)
         Mh = m.mhat(params["P"], params["A"], params["E"])
-    elif fused:
-        from ..ops.pallas_sweeps import fused_gibbs_sweeps
-
-        tiny = jnp.float32(1.2e-38)
-        K, N, G = spec.K, spec.N, spec.G
-        # ONE uniform launch covers every tensor the kernel consumes
-        # (prior-fallback, proposal, and acceptance uniforms for both
-        # sweeps; the hyper-sweep planes when the prior update rides
-        # in-kernel; and — when rank learning — the Gumbel noise for the R
-        # categorical and the A Bernoulli uniforms); the kernel turns the
-        # prior-fallback uniforms into prior draws in VMEM. RNG launches
-        # dominate small-problem iterations.
-        n_p, n_e = K * N, N * G
-        n_rank = 2 * (N + 1) if spec.learning_rank else 0
-        n_hyper = 4 * (n_p + n_e) if hyper_in_kernel else 0
-        u = jax.random.uniform(
-            k_P, (3 * (n_p + n_e) + n_rank + n_hyper,), jnp.float32,
-            minval=tiny)
-        Upr_P = u[:n_p].reshape(K, N)
-        Up_P = u[n_p:2 * n_p].reshape(K, N)
-        Ua_P = u[2 * n_p:3 * n_p].reshape(K, N)
-        off = 3 * n_p
-        Upr_E = u[off:off + n_e].reshape(N, G)
-        Up_E = u[off + n_e:off + 2 * n_e].reshape(N, G)
-        Ua_E = u[off + 2 * n_e:off + 3 * n_e].reshape(N, G)
-        rank_pack = jnp.zeros((3, N + 1), jnp.float32)
-        if spec.learning_rank:
-            off = 3 * (n_p + n_e)
-            gumbel = -jnp.log(-jnp.log(u[off:off + N + 1]))
-            u_A = jnp.concatenate(
-                [u[off + N + 1:off + 2 * N + 1], jnp.zeros((1,), jnp.float32)])
-            row0 = jnp.zeros((N + 1,), jnp.float32).at[0].set(
-                jnp.asarray(temperature, jnp.float32))
-            rank_pack = jnp.stack([row0, gumbel, u_A])
-        hyper_u = hyper_hp = None
-        if hyper_in_kernel:
-            off = 3 * (n_p + n_e) + n_rank
-            hyper_u = (u[off:off + 4 * n_p].reshape(4, K, N),
-                       u[off + 4 * n_p:off + n_hyper].reshape(4, N, G))
-            bc = jnp.broadcast_to
-            hyper_hp = (
-                jnp.stack([bc(jnp.asarray(hp[k], jnp.float32), (K, N))
-                           for k in ("m_p", "s_p", "a_p", "b_p")]),
-                jnp.stack([bc(jnp.asarray(hp[k], jnp.float32), (N, G))
-                           for k in ("m_e", "s_e", "a_e", "b_e")]))
-        if spec.prior == "truncnormal":
-            hp_arrays = (prior["Mu_p"], prior["Sigmasq_p"],
-                         prior["Mu_e"], prior["Sigmasq_e"])
-        else:
-            hp_arrays = (prior["Lambda_p"], jnp.ones((K, N), jnp.float32),
-                         prior["Lambda_e"], jnp.ones((N, G), jnp.float32))
-        (params["P"], params["E"], Mh, acc_P, acc_E, A_new, R_new, na_events,
-         hp0_p_o, hp1_p_o, hp0_e_o, hp1_e_o) = fused_gibbs_sweeps(
-            data, params["P"], params["E"], params["A"], Mh, acc_P, acc_E,
-            Upr_P, Upr_E, Up_P, Ua_P, Up_E, Ua_E, *hp_arrays, rank_pack,
-            prior_kind=spec.prior, exact_mh=spec.exact_mh,
-            accept_all=accept_all,
-            rank_method=spec.rank_method if spec.learning_rank else None,
-            hyper_u=hyper_u, hyper_hp=hyper_hp)
-        if hyper_in_kernel:
-            prior["Mu_p"], prior["Sigmasq_p"] = hp0_p_o, hp1_p_o
-            prior["Mu_e"], prior["Sigmasq_e"] = hp0_e_o, hp1_e_o
-        if spec.learning_rank:
-            params["A"] = A_new
-            params["R"] = R_new.astype(jnp.int32)
     elif spec.stream_sweeps:
         # large-G ensembles: NO (C, K, G) tensor exists on this path — the
         # streaming kernels (ops/pallas_stream_sweeps) recompute each Mhat
-        # tile in VMEM for the P/E sweeps, the inclusion sweep (SBFI/BFI),
-        # and the metrics-row reductions alike, so the resident footprint is
-        # data + E-sized and the BASELINE 256-chain x 96x100k shape fits a
-        # single chip (BENCH_NOTES "Config 5 attacked").
+        # tile in registers for the P/E sweeps, the inclusion sweep
+        # (SBFI/BFI), and the metrics-row reductions alike, so the resident
+        # footprint is data + E-sized.
         params["P"], acc_P, nan_P = U.stream_sweep_P(
             spec, data, params, prior, acc_P, k_P, accept_all)
         params["E"], acc_E, nan_E = U.stream_sweep_E(
@@ -247,7 +165,7 @@ def gibbs_step(spec: ModelSpec, data, hp: dict, state: dict, temperature,
 
     if spec.likelihood == "poisson" and not spec.MH:
         na_events = jnp.float32(0.0)  # conjugate path: no clamped ratios
-    if spec.learning_rank and not fused:
+    if spec.learning_rank:
         params["R"] = U.sample_R(spec, params["A"], temperature, k_R)
         if spec.stream_sweeps:
             params["A"], nan_A = U.stream_sweep_A(

@@ -5,8 +5,7 @@ Parity: get_MAP_ (utils.R:194-288) + get_mode (helpers.R:63-79). The binary-A
 mode is found by bit-packing each A sample (replacing the reference's
 string-hash of matrices) on the small (S, N) host array; the heavy P/E
 averaging and quantiles run as TWO jitted mask-weighted device programs with
-shapes fixed by the window size — no per-check recompiles, no eager dispatch
-(pathological on remote-compile backends).
+shapes fixed by the window size — no per-check recompiles, no eager dispatch.
 """
 
 from __future__ import annotations
@@ -18,6 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops import math as m
+
+# window means are contractions over samples: keep them out of TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def a_mode(A_hist: np.ndarray):
@@ -49,7 +51,7 @@ def _masked_renorm_mean_P(P_hist, mask):
     s = jnp.sum(P_hist, axis=1, keepdims=True)
     safe = jnp.where(s > 0, s, 1.0)
     P_rn = P_hist / safe
-    return jnp.einsum("s,skn->kn", w, P_rn), P_rn
+    return jnp.einsum("s,skn->kn", w, P_rn, precision=_HIGHEST), P_rn
 
 
 @jax.jit
@@ -66,8 +68,8 @@ def _masked_renorm_mean(P_hist, E_hist, mask):
     safe = jnp.where(s > 0, s, 1.0)
     P_rn = P_hist / safe
     E_rn = E_hist * jnp.swapaxes(safe, 1, 2)
-    P_map = jnp.einsum("s,skn->kn", w, P_rn)
-    E_map = jnp.einsum("s,sng->ng", w, E_rn)
+    P_map = jnp.einsum("s,skn->kn", w, P_rn, precision=_HIGHEST)
+    E_map = jnp.einsum("s,sng->ng", w, E_rn, precision=_HIGHEST)
     return P_map, E_map, P_rn, E_rn
 
 

@@ -1,6 +1,6 @@
 """Host-side sampler driver: phases, convergence checks, MAP windows, I/O.
 
-TPU-native equivalent of the bayesNMF_sampler R6 class + bayesNMF() driver
+Equivalent of the bayesNMF_sampler R6 class + bayesNMF() driver
 (/root/reference/R/bayesNMF_sampler.R, bayesNMF.R). The hot loop runs on
 device in jitted chunks of MAP_every iterations (models/gibbs.py); this class
 owns everything at chunk granularity: sample windows, metrics history,
@@ -48,29 +48,6 @@ def _resolve_output_dir(output_dir: Optional[str], overwrite: bool) -> Optional[
     return final
 
 
-#: Largest K*G at which the fused sweep kernel's (K, G) operands are measured
-#: to fit VMEM (K=96, G=3000 compiles and runs on-chip; BENCH_NOTES
-#: "Fused-kernel scale limits").
-_FUSED_SWEEPS_MAX_KG = 96 * 3000
-
-
-def _auto_fused_sweeps(likelihood, prior, MH, mesh, K, G, platform=None):
-    """Measured-best default for the fused Pallas sweep kernel.
-
-    The kernel wins ~4.9x over the XLA sweeps for a SINGLE chain of the
-    poisson+MH families on TPU when all (K, G) operands fit in VMEM
-    (BENCH_NOTES crossover table + kernel-limits table); ensembles (C>=8 is
-    where the HBM-bound XLA path overtakes the VPU-bound kernel) and
-    mesh-sharded fits stay on the XLA path, which this policy leaves alone.
-    """
-    platform = platform or jax.devices()[0].platform
-    return (likelihood == "poisson" and bool(MH)
-            and prior in ("truncnormal", "exponential")
-            and mesh is None
-            and platform == "tpu"
-            and K * G <= _FUSED_SWEEPS_MAX_KG)
-
-
 class GibbsSampler:
     """Single-chain Bayesian NMF Gibbs sampler (device-resident hot loop)."""
 
@@ -95,8 +72,6 @@ class GibbsSampler:
         save_all_samples: bool = True,
         record_history: str = "basic",
         mesh=None,
-        fused_sweeps: Optional[bool] = None,
-        fused_allocation: Optional[bool] = None,
         seed: int = 0,
     ):
         if record_history not in ("basic", "full"):
@@ -126,22 +101,10 @@ class GibbsSampler:
         if MH is None:
             MH = default_MH(likelihood, prior)
 
-        if fused_sweeps is None:
-            # auto: ship the measured-best path by default — the published
-            # single-chain numbers (12.8k it/s config 2) come from this kernel
-            fused_sweeps = _auto_fused_sweeps(
-                likelihood, prior, MH, mesh, data.shape[0], data.shape[1])
-        if fused_allocation is None:
-            # auto: the fused allocation kernel needs the TPU core PRNG;
-            # single-chain conjugate Poisson-Gibbs is exactly its hot path
-            fused_allocation = (
-                likelihood == "poisson" and not MH and mesh is None
-                and jax.devices()[0].platform == "tpu")
         self.spec = ModelSpec(
             K=data.shape[0], N=N, G=data.shape[1],
             likelihood=likelihood, prior=prior, MH=MH,
             learning_rank=learning_rank, rank_method=rank_method,
-            fused_sweeps=fused_sweeps, fused_allocation=fused_allocation,
         )
         self.cc = convergence_control or ConvergenceControl()
         self.run_cfg = RunConfig(
@@ -169,15 +132,11 @@ class GibbsSampler:
         # Optional G-sharding of a single large fit over a device mesh: data
         # M (K,G), exposures E (N,G), Zsum_k and sigmasq live distributed over
         # the mesh's 'g' axis (parallel/mesh.py layout); GSPMD turns the
-        # sweeps' G-contractions into psums over ICI. This is the TPU answer
-        # to the reference's full-matrix residency (get_Mhat/sample_Zkg,
+        # sweeps' G-contractions into psums between devices. This answers
+        # the reference's full-matrix residency (get_Mhat/sample_Zkg,
         # utils.R:29-49, sample_params.R:253-265) at PCAWG/100k-genome scale.
         self.mesh = mesh
         if mesh is not None:
-            if self.spec.fused_sweeps:
-                raise ValueError(
-                    "fused_sweeps is a single-chip VMEM-resident kernel; "
-                    "use the XLA sweep path with mesh sharding")
             from ..parallel import mesh as Mm
 
             self._state_sharding = Mm.state_shardings(
@@ -252,10 +211,9 @@ class GibbsSampler:
         if self._archive is not None:
             # issue ASYNC device->host copies now and materialize this chunk
             # at the NEXT boundary: the transfer overlaps the following
-            # chunk's device compute instead of stalling the driver (a
-            # synchronous pull cost ~200 ms/chunk at PCAWG size through the
-            # relay — measured, BENCH_NOTES config-4 note). At most one
-            # chunk of history occupies HBM beyond the retained window.
+            # chunk's device compute instead of stalling the driver. At most
+            # one chunk of history occupies device memory beyond the
+            # retained window.
             extra = {k: v for k, v in samples.items() if k != "metrics"}
             jax.tree.map(
                 lambda x: x.copy_to_host_async()
@@ -621,7 +579,7 @@ def fit(
     parallel_bic: bool = True,
     **kw,
 ):
-    """Fit Bayesian NMF; the TPU-native ``bayesNMF()``.
+    """Fit Bayesian NMF; the device-resident ``bayesNMF()``.
 
     With a scalar rank or rank_method SBFI/BFI this runs one sampler; with
     rank_method='BIC' it fits one model per candidate rank and returns
@@ -634,8 +592,8 @@ def fit(
     A_n = 0 dispatch (sample_Pn.R:12-13) — identical in distribution to a
     dedicated rank-k fit, at the wall-clock cost of ONE fit instead of the
     reference's serial lapply over ranks (bayesNMF.R:67-105).
-    ``parallel_bic=False`` restores the serial per-rank loop (needed for
-    per-rank output dirs, mesh-sharded fits, or fused_sweeps).
+    ``parallel_bic=False`` restores the serial per-rank loop (one
+    GibbsSampler and output dir per rank).
 
     ``output_dir`` defaults to ``nmf_<likelihood>_<prior>`` like the reference
     (bayesNMF.R:33); pass ``None`` to disable logging/checkpointing entirely
@@ -645,47 +603,29 @@ def fit(
         output_dir = f"nmf_{likelihood}_{prior}"
     learning = not isinstance(rank, (int, np.integer)) and len(list(rank)) > 1
     if learning and rank_method == "BIC" and parallel_bic:
-        import inspect
-
         from ..parallel.ensemble import ChainEnsemble
 
-        # GibbsSampler-only kwargs (e.g. save_all_samples, mesh G-sharding)
-        # route to the serial per-rank loop instead of raising a TypeError
-        # from the ensemble pass-through — drop-in compatibility with the
-        # reference's bayesNMF(rank_method='BIC') surface. The reroute is
-        # announced (a one-word kwarg turns one vmapped device program into
-        # len(ranks) sequential fits — ~4.9x slower at 8 ranks, BENCH_NOTES).
-        supported = set(inspect.signature(ChainEnsemble.__init__).parameters)
-        unsupported = sorted(k for k in kw if k not in supported)
-        if unsupported:
-            import warnings
-
-            warnings.warn(
-                "fit(rank_method='BIC'): kwargs not supported by the vmapped "
-                f"parallel-BIC ensemble ({', '.join(unsupported)}); falling "
-                "back to the serial per-rank loop (one fit per rank — "
-                "substantially slower). Drop them or pass parallel_bic=False "
-                "to silence this.", stacklevel=2)
-        if not unsupported:
-            ranks = sorted(int(r) for r in rank)
-            N = max(ranks)
-            masks = np.zeros((len(ranks), N), np.float32)
-            for c, k in enumerate(ranks):
-                masks[c, :k] = 1.0
-            ens = ChainEnsemble(
-                data, N, n_chains=len(ranks), likelihood=likelihood,
-                prior=prior, MH=MH, convergence_control=convergence_control,
-                output_dir=output_dir, A_masks=masks, **kw)
-            ens.run()
-            table = ens.bic_table()
-            results = [{"rank": int(r["rank"]), "chain": int(r["chain"]),
-                        "dir": ens.output_dir, "BIC": float(r["BIC"]),
-                        "time": ens.time["total"]}
-                       for _, r in table.iterrows()]
-            best_chain = int(table.iloc[0]["chain"])
-            return {"results": results,
-                    "best_rank": int(table.iloc[0]["rank"]),
-                    "sampler": ens.chain(best_chain), "ensemble": ens}
+        # every GibbsSampler option is also a ChainEnsemble option
+        # (tests/test_ensemble_surface.py pins this), so **kw passes through
+        ranks = sorted(int(r) for r in rank)
+        N = max(ranks)
+        masks = np.zeros((len(ranks), N), np.float32)
+        for c, k in enumerate(ranks):
+            masks[c, :k] = 1.0
+        ens = ChainEnsemble(
+            data, N, n_chains=len(ranks), likelihood=likelihood,
+            prior=prior, MH=MH, convergence_control=convergence_control,
+            output_dir=output_dir, A_masks=masks, **kw)
+        ens.run()
+        table = ens.bic_table()
+        results = [{"rank": int(r["rank"]), "chain": int(r["chain"]),
+                    "dir": ens.output_dir, "BIC": float(r["BIC"]),
+                    "time": ens.time["total"]}
+                   for _, r in table.iterrows()]
+        best_chain = int(table.iloc[0]["chain"])
+        return {"results": results,
+                "best_rank": int(table.iloc[0]["rank"]),
+                "sampler": ens.chain(best_chain), "ensemble": ens}
     if learning and rank_method == "BIC":
         results = []
         best = None

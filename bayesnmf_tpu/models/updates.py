@@ -1,6 +1,6 @@
 """Gibbs conditional updates, specialized at trace time on ModelSpec.
 
-TPU-first re-design of the reference's L3 sampling layer
+Re-design of the reference's L3 sampling layer
 (/root/reference/R/sample_Pn.R, sample_En.R, sample_params.R,
 sample_priors.R). Key structural differences from the R package, all
 distribution-preserving:
@@ -302,9 +302,9 @@ def sweep_P(spec: ModelSpec, data, params: dict, prior: dict, Mhat, acc_P, key, 
         Mhat_no_n = Mhat - A_n * jnp.outer(P_n, E_n)
         # mu1/den as shared-input reduces (not dots): XLA sibling-fuses
         # reductions that read the same operands into ONE streaming pass
-        # over the (K, G) tensors, while each dot is a separate MXU op that
-        # re-reads its operands from HBM — at 96x25k the sweep is HBM-bound
-        # and the extra streams are the cost (BENCH_NOTES config-5 table)
+        # over the (K, G) tensors, while each dot is a separate op that
+        # re-reads its operands from device memory — at large G the sweep
+        # is bound by those streams
         resid = data - Mhat_no_n
         inv_sig = 1.0 / sig_mat
         mu1 = jnp.sum(resid * inv_sig * E_n[None, :], axis=1)
@@ -532,18 +532,19 @@ def sweep_E(spec: ModelSpec, data, params: dict, prior: dict, Mhat, acc_E, key, 
 
 
 # ---------------------------------------------------------------------------
-# streaming sweeps (large-G ensembles): Mhat recomputed in VMEM, never in HBM
+# streaming sweeps (large-G ensembles): Mhat recomputed per kernel block,
+# never held in device memory
 # ---------------------------------------------------------------------------
 
 
 def stream_sweep_P(spec: ModelSpec, data, params: dict, prior: dict, acc_P,
                    key, accept_all):
-    """sweep_P without HBM-resident Mhat (poisson + exact-MH families only).
+    """sweep_P without a device-resident Mhat (poisson + exact-MH only).
 
     Per column, two streaming Pallas kernels (ops/pallas_stream_sweeps)
-    recompute the Mhat tile in VMEM from P and the E tile and emit only the
-    forward/reverse conditional reductions, so the per-column HBM traffic is
-    two reads of data + E instead of the XLA path's ~7 (C, K, G) streams
+    recompute each block's Mhat tile from P and the E tile and emit only the
+    forward/reverse conditional reductions, so the per-column memory traffic
+    is two reads of data + E instead of the XLA path's ~7 (C, K, G) streams
     (sig, Mhat_no_n, Mhat_prop, the rank-1 update...). The sampling math —
     conditional mean/variance, exact TruncNormal Hastings correction
     (MH_Pn_poisson, sample_Pn.R:199-248), clamped-NaN fallback — is
@@ -836,7 +837,7 @@ def sweep_A(spec: ModelSpec, data, params: dict, R, Mhat, temperature, key):
 
 
 def stream_sweep_A(spec: ModelSpec, data, params: dict, R, temperature, key):
-    """sweep_A without HBM-resident Mhat (poisson stream path): the per
+    """sweep_A without a device-resident Mhat (poisson stream path): the per
     -column loglik delta comes from one streaming kernel
     (ops/pallas_stream_sweeps.acol_delta); everything else — the
     SBFI/BFI penalty, tempering, the NaN fallback, the Bernoulli draw and
@@ -892,14 +893,4 @@ def sample_sigmasq(spec: ModelSpec, data, prior: dict, Mhat, key):
 
 
 def sample_Z_sums(spec: ModelSpec, data, params: dict, key):
-    if spec.fused_allocation:
-        # whole binary-splitting tree in one VMEM-resident Pallas kernel
-        # with in-kernel TPU PRNG (ops/pallas_allocation.py) — the SURVEY
-        # §2.3 fused multinomial-allocation kernel. Enabled per-spec (the
-        # single-chain conjugate hot path); the XLA tree below remains the
-        # portable reference implementation and the vmapped-ensemble path.
-        from ..ops.pallas_allocation import allocate_counts_fused
-
-        return allocate_counts_fused(
-            key, data, params["P"], params["A"], params["E"])
     return allocate_counts(key, data, params["P"], params["A"], params["E"])

@@ -1,6 +1,6 @@
 // Hungarian (Kuhn-Munkres) assignment solver — native runtime component.
 //
-// TPU-native replacement for the reference's RcppHungarian dependency
+// Native replacement for the reference's RcppHungarian dependency
 // (/root/reference/R/helpers.R:343). The posterior-ensemble signature
 // assignment runs one O(n^3) solve per posterior sample (~1000 solves of
 // ~N_est x ~79 cost matrices per plot call), so this lives in C++ and is

@@ -6,7 +6,7 @@ p ∝ P[k,:]*A*E[:,g]) in a K*G R-level loop (sample_Zkg, sample_params.R:253-26
 (sample_Pn.R:100-114 needs Σ_g Z[k,n,·]; sample_En.R:99-113 needs Σ_k Z[·,n,g]),
 so the K×N×G tensor is materialized only transiently inside one fused program.
 
-TPU-native design: **binary splitting** of the multinomial. A multinomial
+Design: **binary splitting** of the multinomial. A multinomial
 over N components factorizes exactly into a balanced binary tree of
 conditional binomials — Binomial(n, w_left/(w_left+w_right)) at every node —
 so the whole draw needs only ceil(log2 N) *sequential* binomial launches,
@@ -52,7 +52,7 @@ def allocate_counts(key, M, P, A, E):
 
     # leaf weights w_n[k,g] = PA[k,n] * E[n,g], padded to a power of two
     n2 = 1 << max(int(math.ceil(math.log2(max(N, 1)))), 0)
-    W = jnp.einsum("kn,ng->nkg", PA, E)  # (N, K, G)
+    W = PA.T[:, :, None] * E[:, None, :]  # (N, K, G), exact f32 products
     if n2 > N:
         W = jnp.concatenate(
             [W, jnp.zeros((n2 - N, K, G), W.dtype)], axis=0)

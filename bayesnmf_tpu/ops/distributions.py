@@ -1,6 +1,6 @@
 """Vectorized on-device samplers for the Gibbs conditionals.
 
-TPU-native replacements for the reference's native RNG dependencies
+Device-side replacements for the reference's native RNG dependencies
 (SURVEY.md §2.2): truncnorm (C) → ``truncnorm_nonneg``; invgamma →
 ``inv_gamma``; armspp (ARMS, C++) → ``slice_sample_logconcave`` (a vectorized
 stepping-out + shrinkage slice sampler, an exact MCMC kernel for the same 1-D

@@ -1,8 +1,8 @@
 """Pure model math: expected data matrix, likelihoods, priors, metrics.
 
-TPU-native equivalents of the reference's L2 math layer
+Equivalents of the reference's L2 math layer
 (/root/reference/R/utils.R:29-183, helpers.R:18-49). All functions are pure
-jnp, jit/vmap-safe, f32, with the matmul on the MXU.
+jnp, jit/vmap-safe, f32, with full-precision matmuls.
 
 Conventions (match the reference notation): data M is (K, G); P is (K, N)
 signatures; E is (N, G) exposures; A is (N,) binary inclusion; sigmasq is (G,)
@@ -25,7 +25,8 @@ def dot_f32(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
     The Gibbs conditionals consume these products inside log-densities and
     acceptance ratios, so bf16-pass matmuls (the backend default) are not
-    acceptable; N is small, making the extra MXU passes negligible next to
+    acceptable (nor TF32 on the GPU); N is small, making the extra passes
+    negligible next to
     the elementwise K×G work.
     """
     return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST,
@@ -36,7 +37,7 @@ def mhat(P: jnp.ndarray, A: jnp.ndarray, E: jnp.ndarray) -> jnp.ndarray:
     """Expected data matrix ``P @ diag(A) @ E`` → (K, G).
 
     Parity: get_Mhat_ (utils.R:29-49). The diag product is fused as a
-    column-scale of P so the MXU sees a single (K,N)x(N,G) matmul.
+    column-scale of P so the device sees a single (K,N)x(N,G) matmul.
     """
     return dot_f32(P * A[None, :], E)
 
@@ -102,9 +103,8 @@ def truncnorm_logpdf_delta(x_new, x_old, mu, sigmasq):
     """truncnorm_logpdf(x_new, mu, sigmasq) - truncnorm_logpdf(x_old, ...)
     for x_new, x_old >= 0 (truncated draws by construction): the -log(sd)
     and -log Phi(mu/sd) normalizers are identical and cancel, leaving the
-    pure quadratic. Saves two log_ndtr + two log evaluations per element —
-    the dominant VPU cost of the large-G MH acceptance rows (BENCH_NOTES
-    config-5 ablation table)."""
+    pure quadratic. Saves two log_ndtr + two log evaluations per element of
+    the large-G MH acceptance rows."""
     zn = x_new - mu
     zo = x_old - mu
     return -0.5 * (zn * zn - zo * zo) / sigmasq

@@ -1,357 +1,294 @@
-"""Streaming Pallas kernels for the large-G ensemble MH sweeps (config 5).
+"""Streaming reductions for the large-G MH sweeps, as Pallas GPU kernels
+(Triton route).
 
-The XLA sweep path (models/updates.sweep_P/sweep_E) carries Mhat as HBM
+The XLA sweep path (models/updates.sweep_P/sweep_E) carries Mhat as device
 state: every column update streams Mhat several times (sig, Mhat_no_n,
 Mhat_prop, the final rank-1 update) on top of the data matrix. At ensemble
-scale (64 chains x 96x25k: 614 MB per (C, K, G) tensor) the iteration is
-pure HBM bandwidth — measured ~102 ms/iter, i.e. ~80+ GB of traffic.
+scale (64 chains x 96x25k: 614 MB per (C, K, G) tensor) that traffic is
+the iteration's cost, and at 256 chains x 96x100k each such tensor is
+9.8 GB.
 
-These kernels make the Mhat-typed traffic disappear: per column update, two
-grid-over-G-tiles kernels recompute the Mhat tile IN VMEM from P (K, N) and
-the E tile (N, Gt) on the MXU (``_mhat_tile``) and emit only the conditional
-reductions — (K,)-shaped sums accumulated across the sequential grid in
-(K, 128) lane-broadcast blocks for P columns, (1, G) rows for E rows. The
-SBFI/BFI inclusion sweep (``acol_delta``) and the per-iteration metrics row
-(``chain_metrics``) stream the same way, so on this path NO (chains, K, G)
-tensor exists anywhere: HBM traffic per column update is two reads of
-data + E, and memory is O(chains * N * G) — the full 256-chain x 96x100k
-BASELINE shape fits one chip. The measured regime is VPU-bound, not
-HBM-bound (BENCH_NOTES "Config 5 attacked" roofline).
+These kernels never hold Mhat in device memory. Each block recomputes its
+(K, Gt) Mhat tile in registers from P (K, N) and the E tile (N, Gt) as N
+float32 FMAs (N is below the tensor-core contraction minimum, and FMAs keep
+the product out of TF32) and emits only the conditional reductions:
 
-The sampling math is IDENTICAL to updates.sweep_P/sweep_E exact-MH poisson
-path (MH_Pn_poisson, sample_Pn.R:199-248, with the exact TruncNormal
-Hastings correction): the same conditional mean/variance, the same reverse
--conditional, the same clamped-NaN fallback — only the reduction provider
-changed. Equivalence is pinned by tests/test_stream_sweeps.py against the
-XLA path at matched keys, plus a dedicated Geweke joint gate
-(test_geweke.py::test_geweke_joint_stream_sweeps, compiled on-chip too).
+  * P-column kernels (``pcol_*``) and the scalar kernels (``acol_delta``,
+    ``chain_metrics``) reduce over G. Blocks run in parallel in no order, so
+    each block loops over a few G tiles, writes one partial row, and a
+    second pass (``jnp.sum`` in XLA) adds the partials.
+  * E-row kernels (``erow_*``) reduce over K inside the block, so each
+    block writes its own G columns and needs no second pass.
 
-vmap-safety: ``program_id(0)`` remains the declared G grid axis under vmap
-(pallas batching remaps program ids to the user grid — verified, and the
-vmapped equivalence test would fail loudly on a semantics change), so the
-sequential-grid accumulators batch cleanly over a chain axis.
+Rows are padded to a power of two (K=96 -> 128) and G tiles are powers of
+two, as Triton requires; padded rows and columns load as zero and are
+masked out of every sum they could reach.
+
+The sampling math is identical to the exact-MH poisson branch of
+updates.sweep_P/sweep_E (MH_Pn_poisson, sample_Pn.R:199-248, with the exact
+TruncNormal Hastings correction); only the provider of the reductions
+differs. tests/test_stream_sweeps.py pins the equivalence at matched keys.
+
+The kernels compile for the GPU only. Elsewhere they run solely inside
+``interpret_mode()`` (the Pallas interpreter, as the CPU tests use it);
+any other call off the GPU raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 _FLOOR = 1e-6   # MHAT_FLOOR (ops/math.py) as a python float for the kernel
 
+#: Elements of one (rows, G-tile) block and the warps that run it: the
+#: fastest geometry timed on an H100 at 64 chains x 96x25,000 (PERF.md,
+#: PR 1; non-spilling geometries were within 20% of it).
+_TILE_ELEMS = 4096
+_NUM_WARPS = 8
+#: Reduction kernels keep at least this many blocks per chain in flight
+#: (more G tiles per block only when G is large).
+_MIN_BLOCKS = 128
+#: Largest K the kernels take: the row dimension is padded to a power of two
+#: and a block holds all rows of a tile at least 16 columns wide.
+MAX_K = _TILE_ELEMS // 16
 
-def _mhat_tile(PA_ref, E, N):
-    """Recompute the Mhat tile (K, Gt) in VMEM on the MXU.
-
-    An unrolled N-FMA broadcast loop costs 2N VPU ops/element — at N=8 that
-    made the whole kernel VPU-bound (measured 115 ms/iter at config-5 scale
-    vs the XLA path's 104). The dot pays ~6% MXU utilization (contraction
-    dim N=8 of 128) but the MXU's throughput dwarfs the VPU's, so the
-    recompute rides effectively free alongside the elementwise work."""
-    return jax.lax.dot_general(
-        PA_ref[:], E, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-
-
-def _gmask(G, Gt):
-    """(1, Gt) validity mask for the current tile (the last tile may be
-    ragged; Pallas pads out-of-bounds reads with undefined values, which
-    must not leak into the G reductions). ``program_id(0)`` is the declared
-    G grid axis even under vmap — pallas batching remaps program_id to the
-    user grid (verified; test_stream_sweeps pins the vmapped equivalence,
-    so a semantics change would fail loudly there)."""
-    idx = jax.lax.broadcasted_iota(jnp.int32, (1, Gt), 1)
-    return (idx + pl.program_id(0) * Gt) < G
+_interpret = False
 
 
-def _acc_guard(G, Gt, gi, init_refs, accum):
-    """Zero the accumulators on the first tile, then run ``accum`` with the
-    identity weight on interior tiles and the ragged-edge mask on the last
-    (the mask selects are elided entirely when Gt divides G — the kernels
-    are VPU-bound, so every per-element op matters)."""
-
-    @pl.when(gi == 0)
-    def _init():
-        for r in init_refs:
-            r[:] = jnp.zeros(r.shape, r.dtype)
-
-    if G % Gt == 0:
-        accum(lambda x: x)
-    else:
-        last = pl.num_programs(0) - 1
-        mask = _gmask(G, Gt)
-
-        @pl.when(gi < last)
-        def _interior():
-            accum(lambda x: x)
-
-        @pl.when(gi == last)
-        def _edge():
-            accum(lambda x: jnp.where(mask, x, 0.0))
+@contextlib.contextmanager
+def interpret_mode():
+    """Run the kernels in the Pallas interpreter while the context is open
+    (CPU tests). Programs traced inside keep that choice in their cache."""
+    global _interpret
+    prev, _interpret = _interpret, True
+    try:
+        yield
+    finally:
+        _interpret = prev
 
 
-def _pcol_stats_kernel(N, G, Gt, data_ref, E_ref, PA_ref, en_ref, pns_ref,
-                       mu1_ref, den_ref):
-    """Forward-conditional partial sums for one P column over one G tile.
-
-    mu1[k] += sum_g (data - Mhat_no_n)[k,g] / sig[k,g] * E_n[g]
-    den[k] += sum_g E_n[g]^2 / sig[k,g]        (A_n applied host-side)
-
-    ``pns`` is A_n * P_n, pre-scaled by the driver — the A_n multiply
-    vanishes from the per-element work.
-
-    The (K,) accumulators live as (K, 128) lane-broadcast blocks (Mosaic
-    requires 128-multiple or full-dim lane blocks) revisited by every grid
-    step (sequential on TPU); the host reads lane 0.
-    """
-    gi = pl.program_id(0)
-    data = data_ref[:]
-    E = E_ref[:]
-    en = en_ref[:]                       # (1, Gt) — raw E_n (weight)
-    pns = pns_ref[:]                     # (K, 1)  — A_n * P_n
-    Mh = _mhat_tile(PA_ref, E, N)
-    inv = 1.0 / jnp.maximum(Mh, _FLOOR)
-    resid = data - (Mh - pns * en)       # data - Mhat_no_n
-
-    def accum(w):
-        mu1_ref[:] += jnp.sum(w(resid * inv * en), axis=1, keepdims=True)
-        den_ref[:] += jnp.sum(w(inv * (en * en)), axis=1, keepdims=True)
-
-    _acc_guard(G, Gt, gi, (mu1_ref, den_ref), accum)
+def _use_interpret() -> bool:
+    if _interpret:
+        return True
+    platform = jax.default_backend()
+    if platform != "gpu":
+        raise RuntimeError(
+            "the streaming sweep kernels compile for the GPU only; this "
+            f"process runs on {platform!r}. Use the XLA sweep path "
+            "(stream_sweeps=False), or ops.pallas_stream_sweeps."
+            "interpret_mode() to run them in the Pallas interpreter.")
+    return False
 
 
-def _pcol_accept_kernel(N, G, Gt, data_ref, E_ref, PA_ref, en_ref, pns_ref,
-                        props_ref, lp_ref, mu1r_ref, denr_ref):
-    """Acceptance partial sums for one P column over one G tile: the Poisson
-    delta-loglik row-sum plus the reverse-conditional reductions (sig_r =
-    max(Mhat_prop, floor)), exactly as updates.sweep_P's exact-MH branch.
-    ``pns``/``props`` are A_n-pre-scaled by the driver."""
-    gi = pl.program_id(0)
-    data = data_ref[:]
-    E = E_ref[:]
-    en = en_ref[:]
-    pns = pns_ref[:]                     # (K, 1) — A_n * P_n
-    props = props_ref[:]                 # (K, 1) — A_n * proposal
-    Mh = _mhat_tile(PA_ref, E, N)
+def _pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def geometry(K: int, G: int):
+    """(Kp, Gt, tiles_per_block, n_blocks) for a (K, G) problem: rows padded
+    to a power of two, a power-of-two G tile of at most _TILE_ELEMS // Kp
+    columns, and enough G tiles per block for the G-reducing kernels that
+    each chain still has about _MIN_BLOCKS blocks."""
+    if K > MAX_K:
+        raise ValueError(f"streaming kernels take K <= {MAX_K}, got {K}")
+    Kp = _pow2(K)
+    Gt = max(16, min(_TILE_ELEMS // Kp, _pow2(G)))
+    n_tiles = -(-G // Gt)
+    per_block = max(1, n_tiles // _MIN_BLOCKS)
+    return Kp, Gt, per_block, -(-n_tiles // per_block)
+
+
+def _load_tile(data_ref, E_ref, PA_ref, g0, K, N, G, Kp, Gt):
+    """Masked (Kp, Gt) data and Mhat tiles starting at column ``g0``, plus
+    the row/column indices and masks."""
+    rows = jnp.arange(Kp)
+    cols = g0 + jnp.arange(Gt)
+    rmask = rows < K
+    cmask = cols < G
+    m2 = rmask[:, None] & cmask[None, :]
+    data = plgpu.load(data_ref.at[rows[:, None], cols[None, :]], mask=m2,
+                      other=0.0)
+    Mh = jnp.zeros((Kp, Gt), jnp.float32)
+    for n in range(N):
+        pa = plgpu.load(PA_ref.at[rows, n], mask=rmask, other=0.0)
+        e = plgpu.load(E_ref.at[n, cols], mask=cmask, other=0.0)
+        Mh = Mh + pa[:, None] * e[None, :]
+    return data, Mh, rows, cols, rmask, cmask, m2
+
+
+def _row_terms(kind, data, Mh, en, pns, props):
+    """Per-element terms of the P-column reductions (summed over G).
+    ``pns``/``props`` are A_n-pre-scaled (K, 1) columns, ``en`` the raw
+    (1, Gt) exposure row (zero on padded columns, so every term is)."""
+    if kind == "stats":
+        inv = 1.0 / jnp.maximum(Mh, _FLOOR)
+        resid = data - (Mh - pns * en)
+        return resid * inv * en, inv * (en * en)
     Mh_no = Mh - pns * en
     lam = jnp.maximum(Mh, _FLOOR)
     lam_new = jnp.maximum(Mh_no + props * en, _FLOOR)
     d = lam_new - lam
-    lp = data * jnp.log1p(d / lam) - d
-    invr = 1.0 / lam_new                 # == 1 / sig_r
-    resid = data - Mh_no
-
-    def accum(w):
-        lp_ref[:] += jnp.sum(w(lp), axis=1, keepdims=True)
-        mu1r_ref[:] += jnp.sum(w(resid * invr * en), axis=1, keepdims=True)
-        denr_ref[:] += jnp.sum(w(invr * (en * en)), axis=1, keepdims=True)
-
-    _acc_guard(G, Gt, gi, (lp_ref, mu1r_ref, denr_ref), accum)
-
-
-def _erow_stats_kernel(N, G, Gt, data_ref, E_ref, PA_ref, en_ref, pn_ref,
-                       mu1_ref, den_ref):
-    """Forward-conditional sums for one E row over one G tile (reduction is
-    over K, entirely inside the tile — outputs are (1, Gt) blocks, stores
-    bound-clipped by Pallas on the ragged edge). ``ens`` is A_n * E_n;
-    ``pn`` stays raw (it is the reduction weight)."""
-    data = data_ref[:]
-    E = E_ref[:]
-    ens = en_ref[:]                      # (1, Gt) — A_n * E_n
-    pn = pn_ref[:]                       # (K, 1)  — raw P_n (weight)
-    Mh = _mhat_tile(PA_ref, E, N)
-    inv = 1.0 / jnp.maximum(Mh, _FLOOR)
-    resid = data - (Mh - pn * ens)
-    mu1_ref[:] = jnp.sum(resid * inv * pn, axis=0, keepdims=True)
-    den_ref[:] = jnp.sum(inv * (pn * pn), axis=0, keepdims=True)
-
-
-def _erow_accept_kernel(N, G, Gt, data_ref, E_ref, PA_ref, en_ref, pn_ref,
-                        prop_ref, lp_ref, mu1r_ref, denr_ref):
-    data = data_ref[:]
-    E = E_ref[:]
-    ens = en_ref[:]                      # (1, Gt) — A_n * E_n
-    pn = pn_ref[:]
-    props = prop_ref[:]                  # (1, Gt) — A_n * proposal
-    Mh = _mhat_tile(PA_ref, E, N)
-    Mh_no = Mh - pn * ens
-    lam = jnp.maximum(Mh, _FLOOR)
-    lam_new = jnp.maximum(Mh_no + pn * props, _FLOOR)
-    d = lam_new - lam
-    lp = data * jnp.log1p(d / lam) - d
     invr = 1.0 / lam_new
-    resid = data - Mh_no
-    lp_ref[:] = jnp.sum(lp, axis=0, keepdims=True)
-    mu1r_ref[:] = jnp.sum(resid * invr * pn, axis=0, keepdims=True)
-    denr_ref[:] = jnp.sum(invr * (pn * pn), axis=0, keepdims=True)
+    return (data * jnp.log1p(d / lam) - d, (data - Mh_no) * invr * en,
+            invr * (en * en))
 
 
-def _acol_delta_kernel(N, G, Gt, data_ref, E_ref, PA_ref, en_ref, pn_ref,
-                       an_ref, delta_ref):
-    """Streaming inclusion-sweep delta for one A column (sample_An,
-    sample_params.R:101-166): sum over the tile of
-    data*log1p(d_lam/lam_off) - d_lam with lam_on/off = max(Mhat_off
-    [+ contrib], floor) — the single reduction sweep_A needs per column,
-    without an HBM-resident Mhat."""
-    gi = pl.program_id(0)
-    data = data_ref[:]
-    E = E_ref[:]
-    en = en_ref[:]
-    pn = pn_ref[:]
-    an = an_ref[0, 0]
-    Mh = _mhat_tile(PA_ref, E, N)
-    contrib = pn * en
-    Mh_off = Mh - an * contrib
-    lam_off = jnp.maximum(Mh_off, _FLOOR)
-    lam_on = jnp.maximum(Mh_off + contrib, _FLOOR)
-    d = lam_on - lam_off
-
-    def accum(w):
-        delta_ref[:] += jnp.sum(w(data * jnp.log1p(d / lam_off) - d))
-
-    _acc_guard(G, Gt, gi, (delta_ref,), accum)
-
-
-@jax.jit
-def acol_delta(data, E, PA, en, pn, an):
-    """loglik(A_n=1) - loglik(A_n=0) for one inclusion column, streamed."""
-    K, N = PA.shape
-    G = E.shape[1]
-    Gt = _tile(G, K)
-    vmem = pltpu.VMEM
-    ins = [
-        pl.BlockSpec((K, Gt), lambda i: (0, i), memory_space=vmem),
-        pl.BlockSpec((N, Gt), lambda i: (0, i), memory_space=vmem),
-        pl.BlockSpec((K, N), lambda i: (0, 0), memory_space=vmem),
-        pl.BlockSpec((1, Gt), lambda i: (0, i), memory_space=vmem),
-        pl.BlockSpec((K, 1), lambda i: (0, 0), memory_space=vmem),
-        pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=vmem),
-    ]
-    res = pl.pallas_call(
-        functools.partial(_acol_delta_kernel, N, G, Gt),
-        grid=(-(-G // Gt),),
-        in_specs=ins,
-        out_specs=pl.BlockSpec((1, 128), lambda i: (0, 0),
-                               memory_space=vmem),
-        out_shape=jax.ShapeDtypeStruct((1, 128), jnp.float32),
-        interpret=jax.devices()[0].platform != "tpu",
-    )(data, E, PA, en.reshape(1, G), pn.reshape(K, 1), an.reshape(1, 1))
-    return res[..., 0, 0]
-
-
-def _chain_metrics_kernel(N, G, Gt, data_ref, E_ref, PA_ref,
-                          mloglam_ref, lamsum_ref, mploglam_ref, sqerr_ref):
-    """Streaming per-chain metric reductions: the four data-dependent sums
-    of the per-iteration metrics row (ops/math poisson loglik, padded KL,
-    RMSE) computed without ever materializing Mhat in HBM — the stream
-    path's replacement for the (C, K, G) `mhat` the metrics row otherwise
-    forces (models/gibbs._metrics_row)."""
-    gi = pl.program_id(0)
-    data = data_ref[:]
-    E = E_ref[:]
-    Mh = _mhat_tile(PA_ref, E, N)
-    lam = jnp.maximum(Mh, _FLOOR)
-    L = jnp.log(lam)
-    d = Mh - data
-
-    def accum(w):
-        mloglam_ref[:] += jnp.sum(w(data * L))
-        lamsum_ref[:] += jnp.sum(w(lam))
-        mploglam_ref[:] += jnp.sum(w(jnp.maximum(data, 1e-6) * L))
-        sqerr_ref[:] += jnp.sum(w(d * d))
-
-    _acc_guard(G, Gt, gi, (mloglam_ref, lamsum_ref, mploglam_ref, sqerr_ref),
-               accum)
-
-
-@jax.jit
-def chain_metrics(data, E, PA):
-    """(sum M log lam, sum lam, sum Mp log lam, sum (Mhat-M)^2) for one
-    chain, streaming data + E once. vmap over chains for ensembles."""
-    K, N = PA.shape
-    G = E.shape[1]
-    Gt = _tile(G, K)
-    vmem = pltpu.VMEM
-    ins = [
-        pl.BlockSpec((K, Gt), lambda i: (0, i), memory_space=vmem),
-        pl.BlockSpec((N, Gt), lambda i: (0, i), memory_space=vmem),
-        pl.BlockSpec((K, N), lambda i: (0, 0), memory_space=vmem),
-    ]
-    out = pl.BlockSpec((1, 128), lambda i: (0, 0), memory_space=vmem)
-    oshape = jax.ShapeDtypeStruct((1, 128), jnp.float32)
-    res = pl.pallas_call(
-        functools.partial(_chain_metrics_kernel, N, G, Gt),
-        grid=(-(-G // Gt),),
-        in_specs=ins,
-        out_specs=[out] * 4,
-        out_shape=[oshape] * 4,
-        interpret=jax.devices()[0].platform != "tpu",
-    )(data, E, PA)
-    return tuple(r[..., 0, 0] for r in res)
-
-
-def _tile(G: int, K: int) -> int:
-    """G tile: multiple of 128 keeping ~<= 5 MB live VMEM (data + E + Mh +
-    a couple of temps ~ (3K + N + 4) * Gt * 4 bytes, double-buffered)."""
-    per_g = (3 * K + 16) * 4
-    t = max((5 * 1024 * 1024) // per_g, 128)
-    t = (t // 128) * 128
-    return min(t, max(-(-G // 128) * 128, 128))
-
-
-def _specs(K, N, G, Gt, col: bool, with_prop: bool):
-    vmem = pltpu.VMEM
-    ins = [
-        pl.BlockSpec((K, Gt), lambda i: (0, i), memory_space=vmem),   # data
-        pl.BlockSpec((N, Gt), lambda i: (0, i), memory_space=vmem),   # E
-        pl.BlockSpec((K, N), lambda i: (0, 0), memory_space=vmem),    # PA
-        pl.BlockSpec((1, Gt), lambda i: (0, i), memory_space=vmem),   # en
-        pl.BlockSpec((K, 1), lambda i: (0, 0), memory_space=vmem),    # pn
-    ]
-    if with_prop:
-        ins.append(pl.BlockSpec((K, 1) if col else (1, Gt),
-                                (lambda i: (0, 0)) if col else
-                                (lambda i: (0, i)), memory_space=vmem))
-    if col:  # (K, 128) lane-broadcast accumulator blocks (see kernel note)
-        out = pl.BlockSpec((K, 128), lambda i: (0, 0), memory_space=vmem)
-        oshape = jax.ShapeDtypeStruct((K, 128), jnp.float32)
+def _pcol_kernel(kind, K, N, G, Kp, Gt, per_block, data_ref, E_ref, PA_ref,
+                 en_ref, pn_ref, *rest):
+    """P-column partial sums of one block over ``per_block`` G tiles."""
+    if kind == "stats":
+        prop_ref, outs = None, rest
     else:
-        out = pl.BlockSpec((1, Gt), lambda i: (0, i), memory_space=vmem)
-        oshape = jax.ShapeDtypeStruct((1, G), jnp.float32)
-    n_out = 3 if with_prop else 2
-    return ins, [out] * n_out, [oshape] * n_out
+        prop_ref, outs = rest[0], rest[1:]
+    pid = pl.program_id(0)
+    rows = jnp.arange(Kp)
+    rmask = rows < K
+    pns = plgpu.load(pn_ref.at[rows], mask=rmask, other=0.0)[:, None]
+    props = (None if prop_ref is None else
+             plgpu.load(prop_ref.at[rows], mask=rmask, other=0.0)[:, None])
+
+    def tile(j, accs):
+        g0 = (pid * per_block + j) * Gt
+        data, Mh, _, cols, _, cmask, _ = _load_tile(
+            data_ref, E_ref, PA_ref, g0, K, N, G, Kp, Gt)
+        en = plgpu.load(en_ref.at[cols], mask=cmask, other=0.0)[None, :]
+        terms = _row_terms(kind, data, Mh, en, pns, props)
+        return tuple(a + t for a, t in zip(accs, terms))
+
+    # elementwise accumulation across the block's tiles; one row sum at the
+    # end instead of a cross-lane reduction per tile
+    init = tuple(jnp.zeros((Kp, Gt), jnp.float32) for _ in outs)
+    accs = (tile(0, init) if per_block == 1
+            else jax.lax.fori_loop(0, per_block, tile, init))
+    for o_ref, a in zip(outs, accs):
+        plgpu.store(o_ref.at[pid, rows], jnp.sum(a, axis=1))
 
 
-@functools.partial(jax.jit, static_argnames=("col", "with_prop"))
-def _run(data, E, PA, en, pn, prop, col: bool, with_prop: bool):
+def _erow_kernel(kind, K, N, G, Kp, Gt, data_ref, E_ref, PA_ref, en_ref,
+                 pn_ref, *rest):
+    """E-row sums over K for one G tile. ``en`` (A_n * E_n) and ``prop``
+    (A_n * proposal) are pre-scaled; ``pn`` stays raw (it is the weight).
+    Padded rows load pn = 0, which zeroes every term."""
+    if kind == "stats":
+        prop_ref, outs = None, rest
+    else:
+        prop_ref, outs = rest[0], rest[1:]
+    g0 = pl.program_id(0) * Gt
+    data, Mh, rows, cols, rmask, cmask, _ = _load_tile(
+        data_ref, E_ref, PA_ref, g0, K, N, G, Kp, Gt)
+    ens = plgpu.load(en_ref.at[cols], mask=cmask, other=0.0)[None, :]
+    pn = plgpu.load(pn_ref.at[rows], mask=rmask, other=0.0)[:, None]
+    if kind == "stats":
+        inv = 1.0 / jnp.maximum(Mh, _FLOOR)
+        resid = data - (Mh - pn * ens)
+        terms = (resid * inv * pn, inv * (pn * pn))
+    else:
+        props = plgpu.load(prop_ref.at[cols], mask=cmask, other=0.0)[None, :]
+        Mh_no = Mh - pn * ens
+        lam = jnp.maximum(Mh, _FLOOR)
+        lam_new = jnp.maximum(Mh_no + pn * props, _FLOOR)
+        d = lam_new - lam
+        invr = 1.0 / lam_new
+        terms = (data * jnp.log1p(d / lam) - d, (data - Mh_no) * invr * pn,
+                 invr * (pn * pn))
+    for o_ref, t in zip(outs, terms):
+        plgpu.store(o_ref.at[cols], jnp.sum(t, axis=0), mask=cmask)
+
+
+def _scalar_kernel(kind, K, N, G, Kp, Gt, per_block, data_ref, E_ref, PA_ref,
+                   *rest):
+    """Scalar partial sums of one block: the inclusion-sweep loglik delta
+    (``acol``) or the four data-dependent metric sums (``metrics``)."""
+    if kind == "acol":
+        en_ref, pn_ref, an_ref, outs = rest[0], rest[1], rest[2], rest[3:]
+        rows = jnp.arange(Kp)
+        pn = plgpu.load(pn_ref.at[rows], mask=rows < K, other=0.0)[:, None]
+        an = an_ref[0]
+    else:
+        outs = rest
+    pid = pl.program_id(0)
+
+    def tile(j, accs):
+        g0 = (pid * per_block + j) * Gt
+        data, Mh, _, cols, _, cmask, m2 = _load_tile(
+            data_ref, E_ref, PA_ref, g0, K, N, G, Kp, Gt)
+        if kind == "acol":
+            # sample_An (sample_params.R:101-166): padded entries have
+            # contrib = 0, so d = 0 there
+            en = plgpu.load(en_ref.at[cols], mask=cmask, other=0.0)[None, :]
+            contrib = pn * en
+            Mh_off = Mh - an * contrib
+            lam_off = jnp.maximum(Mh_off, _FLOOR)
+            d = jnp.maximum(Mh_off + contrib, _FLOOR) - lam_off
+            terms = (data * jnp.log1p(d / lam_off) - d,)
+        else:
+            # poisson loglik, padded KL and RMSE sums (ops/math.py); the
+            # floors make padded entries nonzero, so those terms are masked
+            lam = jnp.maximum(Mh, _FLOOR)
+            L = jnp.log(lam)
+            dd = Mh - data
+            terms = (data * L, jnp.where(m2, lam, 0.0),
+                     jnp.where(m2, jnp.maximum(data, 1e-6) * L, 0.0), dd * dd)
+        return tuple(a + t for a, t in zip(accs, terms))
+
+    init = tuple(jnp.zeros((Kp, Gt), jnp.float32) for _ in outs)
+    accs = (tile(0, init) if per_block == 1
+            else jax.lax.fori_loop(0, per_block, tile, init))
+    for o_ref, a in zip(outs, accs):
+        o_ref[pid] = jnp.sum(a)
+
+
+_N_OUT = {("pcol", "stats"): 2, ("pcol", "accept"): 3,
+          ("erow", "stats"): 2, ("erow", "accept"): 3,
+          ("scalar", "acol"): 1, ("scalar", "metrics"): 4}
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "family", "kind", "geom", "num_warps", "interpret"))
+def _call(args, *, family, kind, geom, num_warps, interpret):
+    data, E, PA = args[:3]
     K, N = PA.shape
     G = E.shape[1]
-    Gt = _tile(G, K)
-    ins, outs, oshapes = _specs(K, N, G, Gt, col, with_prop)
-    kern = {
-        (True, False): _pcol_stats_kernel,
-        (True, True): _pcol_accept_kernel,
-        (False, False): _erow_stats_kernel,
-        (False, True): _erow_accept_kernel,
-    }[(col, with_prop)]
-    args = [data, E, PA, en.reshape(1, G), pn.reshape(K, 1)]
-    if with_prop:
-        args.append(prop.reshape((K, 1) if col else (1, G)))
+    Kp, Gt, per_block, n_blocks = geom
+    n_out = _N_OUT[(family, kind)]
+    if family == "pcol":
+        kern = functools.partial(_pcol_kernel, kind, K, N, G, Kp, Gt,
+                                 per_block)
+        grid, oshape = n_blocks, (n_blocks, Kp)
+    elif family == "erow":
+        kern = functools.partial(_erow_kernel, kind, K, N, G, Kp, Gt)
+        grid, oshape = -(-G // Gt), (G,)
+    else:
+        kern = functools.partial(_scalar_kernel, kind, K, N, G, Kp, Gt,
+                                 per_block)
+        grid, oshape = n_blocks, (n_blocks,)
     res = pl.pallas_call(
-        functools.partial(kern, N, G, Gt),
-        grid=(-(-G // Gt),),
-        in_specs=ins,
-        out_specs=outs,
-        out_shape=oshapes,
-        interpret=jax.devices()[0].platform != "tpu",
+        kern,
+        grid=(grid,),
+        out_shape=[jax.ShapeDtypeStruct(oshape, jnp.float32)] * n_out,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
+        interpret=interpret,
+        name=f"stream_{family}_{kind}",
     )(*args)
-    if col:
-        return tuple(r[..., 0] for r in res)         # (K,) — lane 0
-    return tuple(r.reshape(G) for r in res)          # (G,)
+    if family == "pcol":
+        return tuple(jnp.sum(r, axis=0)[:K] for r in res)
+    if family == "scalar":
+        return tuple(jnp.sum(r) for r in res)
+    return tuple(res)
+
+
+def _run(family, kind, *args):
+    K = args[2].shape[0]
+    G = args[1].shape[1]
+    return _call(args, family=family, kind=kind, geom=geometry(K, G),
+                 num_warps=_NUM_WARPS, interpret=_use_interpret())
 
 
 # Pre-scaling contract (the A_n multiply never reaches the per-element
@@ -359,18 +296,35 @@ def _run(data, E, PA, en, pn, prop, col: bool, with_prop: bool):
 # raw; E-row kernels take en = A_n*E_n and prop = A_n*proposal with pn raw.
 
 def pcol_stats(data, E, PA, en, pn_scaled):
-    return _run(data, E, PA, en, pn_scaled, None, col=True, with_prop=False)
+    """Forward-conditional sums of one P column, each (K,):
+    mu1 = sum_g (data - Mhat_no_n) / sig * E_n, den = sum_g E_n^2 / sig."""
+    return _run("pcol", "stats", data, E, PA, en, pn_scaled)
 
 
 def pcol_accept(data, E, PA, en, pn_scaled, prop_scaled):
-    return _run(data, E, PA, en, pn_scaled, prop_scaled, col=True,
-                with_prop=True)
+    """Acceptance sums of one P column, each (K,): the Poisson delta-loglik
+    row sum and the reverse-conditional mu1/den (sig_r = max(Mhat_prop,
+    floor))."""
+    return _run("pcol", "accept", data, E, PA, en, pn_scaled, prop_scaled)
 
 
 def erow_stats(data, E, PA, en_scaled, pn):
-    return _run(data, E, PA, en_scaled, pn, None, col=False, with_prop=False)
+    """Forward-conditional sums of one E row, each (G,)."""
+    return _run("erow", "stats", data, E, PA, en_scaled, pn)
 
 
 def erow_accept(data, E, PA, en_scaled, pn, prop_scaled):
-    return _run(data, E, PA, en_scaled, pn, prop_scaled, col=False,
-                with_prop=True)
+    """Acceptance sums of one E row, each (G,)."""
+    return _run("erow", "accept", data, E, PA, en_scaled, pn, prop_scaled)
+
+
+def acol_delta(data, E, PA, en, pn, an):
+    """loglik(A_n=1) - loglik(A_n=0) for one inclusion column."""
+    return _run("scalar", "acol", data, E, PA, en, pn,
+                jnp.reshape(an, (1,)).astype(jnp.float32))[0]
+
+
+def chain_metrics(data, E, PA):
+    """(sum M log lam, sum lam, sum Mp log lam, sum (Mhat-M)^2) for one
+    chain, streaming data + E once. vmap over chains for ensembles."""
+    return _run("scalar", "metrics", data, E, PA)

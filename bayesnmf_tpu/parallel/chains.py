@@ -1,7 +1,7 @@
 """Vmapped chain ensembles, optionally sharded over a device mesh.
 
 No reference equivalent (the R package deliberately runs one chain,
-advanced.qmd:56); this is the throughput axis of the TPU design: thousands of
+advanced.qmd:56); this is the throughput axis of the design: thousands of
 independent chains per chip via vmap, data-parallel over the ``chain`` mesh
 axis, with per-chain RNG streams from threefry key folding.
 """
@@ -38,7 +38,7 @@ def run_chunk_chains(spec: ModelSpec, data, hp: dict, states: dict, temps,
 
     ``store_E=False`` drops the stacked E history from the outputs *inside*
     the jitted program, so XLA dead-code-eliminates the (chains, chunk, N, G)
-    stack — at 100k genomes that stack dominates HBM. ``record='metrics'``
+    stack — at 100k genomes that stack dominates device memory. ``record='metrics'``
     drops P/A too (pure throughput mode).
     """
 

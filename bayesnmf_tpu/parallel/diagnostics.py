@@ -3,7 +3,7 @@
 No reference equivalent: the R package runs exactly one chain and its
 convergence heuristic is a windowed %-change rule on a scalar metric
 (/root/reference/R/convergence.R:60-154; advanced.qmd:56 states multiple
-chains are deliberately not used). The TPU design runs chain *ensembles*
+chains are deliberately not used). This design runs chain *ensembles*
 (parallel/chains.py), which unlocks the modern gold-standard diagnostics:
 rank-normalized split-R̂ and bulk/tail ESS (Vehtari, Gelman, Simpson,
 Carpenter & Bürkner 2021, "Rank-normalization, folding, and localization:

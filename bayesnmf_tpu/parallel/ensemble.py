@@ -16,20 +16,15 @@ the same cosine-weighted Hungarian voting the single-chain path uses
 (postprocessing.R:175-341) plus pooled cross-chain summaries.
 
 Two throughput mechanisms the single-chain path lacks:
-  - the fused Pallas sweep kernel batches over the chain axis (the per-chain
-    warmup accept flag is a kernel operand, so one kernel grid covers chains
-    in both phases; ``fused_sweeps=True``). Measured guidance (BENCH_NOTES
-    "ensemble axis"): the XLA sweep path is HBM-bound and wins for C >= 8
-    (42.8k vs 25.7k chain-it/s at C = 256, 96x500); the VPU-bound kernel's
-    domain is the latency-bound single-chain regime (~4.9x there). Default
-    is therefore the XLA path; fused is opt-in.
+  - the streaming sweep kernels (ops/pallas_stream_sweeps), chosen for
+    large poisson+MH ensembles on the GPU (``_auto_stream_sweeps``): no
+    (chains, K, G) tensor is held in device memory;
   - **live-chain compaction**: once a chain has finished its inference window
     (its ``_end_iter``), its MAP/CIs/sample window are finalized to host
     memory and the device ensemble is compacted to the still-running chains
     (power-of-two buckets, so at most log2(C) program sizes ever compile) —
     converged chains stop consuming device iterations instead of idling
-    until the slowest chain finishes (measured 1.17x wall-clock on a
-    staggered 32-chain run through the relay; bench.py --compact).
+    until the slowest chain finishes (bench.py --compact).
 """
 
 from __future__ import annotations
@@ -55,26 +50,38 @@ from ..utils.logging import RunLogger
 from . import chains as chains_mod
 
 
-#: Smallest G at which the streaming sweep kernels are measured to beat the
-#: XLA sweep path for vmapped ensembles (BENCH_NOTES config-5 table,
-#: measured on-chip at C=64: XLA wins 1.14x at G=1000, streaming wins 1.03x
-#: at G=2000, 1.43x at G=8000, 1.60x at G=25000).
-_STREAM_SWEEPS_MIN_G = 2000
+#: Smallest G at which the streaming sweep kernels beat the XLA sweep path
+#: for rank-learning (SBFI/BFI) ensembles. Measured on one H100 at 64 chains
+#: (PERF.md, PR 1): the kernels lose at G = 2,000 and 8,000 and win at
+#: 25,000 and at 256 chains x 100,000. With a fixed rank they lost at every
+#: G up to 25,000, so there they serve only shapes the XLA path cannot fit.
+_STREAM_SWEEPS_MIN_G = 25000
+#: Peak device bytes of the XLA sweep path per element of a (chains, K, G)
+#: tensor: 32.8 GB at 256 chains x 96x100,000 SBFI on an H100 (PERF.md,
+#: PR 1). The streaming path needed 4.0 bytes per element there.
+_XLA_BYTES_PER_CKG = 13.4
 
 
-def _auto_stream_sweeps(likelihood, prior, MH, mesh, fused_sweeps, G,
-                        platform=None):
-    """Measured-best default for the streaming sweep kernels
-    (ops/pallas_stream_sweeps): large-G poisson+MH ensembles on TPU, where
-    the XLA path's HBM-resident Mhat traffic dominates. Mesh-sharded runs
-    keep the XLA path (pallas_call under GSPMD partitioning of the G axis
-    is not supported)."""
-    platform = platform or jax.devices()[0].platform
-    return (likelihood == "poisson" and bool(MH)
+def _auto_stream_sweeps(likelihood, prior, MH, mesh, learning_rank, C, K, G,
+                        platform=None, bytes_limit=None):
+    """Default for the streaming sweep kernels (ops/pallas_stream_sweeps):
+    poisson+MH ensembles on the GPU, at a K the kernels take, that either
+    learn the rank at large G (where the kernels are faster) or would not
+    fit in device memory on the XLA path. Mesh-sharded runs keep the XLA
+    path (pallas_call under GSPMD partitioning of the G axis is not
+    supported)."""
+    from ..ops.pallas_stream_sweeps import MAX_K
+
+    platform = platform or jax.default_backend()
+    if not (likelihood == "poisson" and bool(MH)
             and prior in ("truncnormal", "exponential")
-            and mesh is None and not fused_sweeps
-            and platform == "tpu"
-            and G >= _STREAM_SWEEPS_MIN_G)
+            and mesh is None and platform == "gpu" and K <= MAX_K):
+        return False
+    if learning_rank and G >= _STREAM_SWEEPS_MIN_G:
+        return True
+    if bytes_limit is None:
+        bytes_limit = jax.devices()[0].memory_stats()["bytes_limit"]
+    return _XLA_BYTES_PER_CKG * C * K * G > bytes_limit
 
 
 class _ViewTracker:
@@ -416,7 +423,6 @@ class ChainEnsemble:
         init_prior_params: Optional[dict] = None,
         init_params: Optional[dict] = None,
         record_history: str = "basic",
-        fused_sweeps: bool = False,
         stream_sweeps: Optional[bool] = None,
         want_ci: bool = True,
         compact: bool = True,
@@ -445,10 +451,6 @@ class ChainEnsemble:
         N = max(ranks)
         if MH is None:
             MH = default_MH(likelihood, prior)
-        if fused_sweeps and mesh is not None:
-            raise ValueError(
-                "fused_sweeps is a per-chip VMEM-resident kernel; use the "
-                "XLA sweep path for mesh-sharded ensembles")
         if stream_sweeps and mesh is not None:
             raise ValueError(
                 "stream_sweeps kernels do not partition over a G-sharded "
@@ -457,12 +459,12 @@ class ChainEnsemble:
                 "each chip and split across processes)")
         if stream_sweeps is None:
             stream_sweeps = _auto_stream_sweeps(
-                likelihood, prior, MH, mesh, fused_sweeps, data.shape[1])
+                likelihood, prior, MH, mesh, learning_rank, n_chains,
+                data.shape[0], data.shape[1])
         self.spec = ModelSpec(
             K=data.shape[0], N=N, G=data.shape[1], likelihood=likelihood,
             prior=prior, MH=MH, learning_rank=learning_rank,
-            rank_method=rank_method, fused_sweeps=fused_sweeps,
-            stream_sweeps=stream_sweeps,
+            rank_method=rank_method, stream_sweeps=stream_sweeps,
         )
         self.cc = convergence_control or ConvergenceControl()
         # Optional per-chain FIXED inclusion masks (n_chains, N): chain c

@@ -5,8 +5,8 @@ a single R process; here chains are data-parallel over a ``chain`` mesh axis
 and the sample dimension G (genomes) is sharded over a ``g`` axis so the
 (N, G) exposure table, the (K, G) data/Mhat workspaces, and the latent-count
 partial sums live distributed. GSPMD inserts the collectives: the P-sweep's
-residual contractions over G and the A-sweep's loglik sums become psums over
-ICI; everything else is local.
+residual contractions over G and the A-sweep's loglik sums become psums
+between devices; everything else is local.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def state_shardings(spec, mesh: Mesh, chains: bool = True):
 
     Layout: every G-sized trailing axis is sharded over ``g``; the leading
     chain axis (if ``chains``) is sharded over ``chain``; K/N axes are
-    replicated (N is small; K=96 rides free in VMEM).
+    replicated (N is small).
     """
     c = (CHAIN_AXIS,) if chains else ()
 

@@ -1,8 +1,8 @@
 """Worker for the true multi-process jax.distributed tests/benchmarks (see
 test_parallel_multiproc.py and ``bench.py --multiproc``). Each process owns
 2 virtual CPU devices; the global (chain, g) mesh spans the processes with
-the g axis inside one process (the ICI doctrine of parallel/multihost.py)
-and the chain axis data-parallel across processes (the DCN axis).
+the g axis inside one process (the layout doctrine of
+parallel/multihost.py) and the chain axis data-parallel across processes.
 
 argv: pid port [nprocs n_chains iters K N G] [--bench]
 Defaults reproduce the original correctness test (2 procs, 4 chains,

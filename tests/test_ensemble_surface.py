@@ -11,9 +11,6 @@ lacks.
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
-
 from bayesnmf_tpu.config import ConvergenceControl
 from bayesnmf_tpu.parallel.ensemble import ChainEnsemble
 
@@ -34,7 +31,7 @@ def ens():
     e = ChainEnsemble(
         _sim(), 3, n_chains=6, likelihood="poisson", prior="truncnormal",
         MH=True, convergence_control=CC, post_warmup=40, seed=0,
-        output_dir=None, record_history="full", fused_sweeps=True,
+        output_dir=None, record_history="full",
         hyperprior_params={"s_p": 2.5},
     )
     e.run()
@@ -103,26 +100,6 @@ def test_ensemble_compaction_stops_finished_chains(ens):
     assert np.isfinite(tbl["BIC"]).all()
 
 
-def test_ensemble_fused_accept_flag_is_per_chain():
-    """During warmup every chain must record acceptance 1.0 (accept-all);
-    after its own convergence the same compiled program must apply true MH
-    for that chain only — the flag is data, not a compiled constant."""
-    from bayesnmf_tpu.config import ModelSpec, default_hyperprior_params
-    from bayesnmf_tpu.parallel import chains as C
-
-    data = jnp.asarray(_sim())
-    spec = ModelSpec(K=16, N=3, G=24, likelihood="poisson",
-                     prior="truncnormal", MH=True, fused_sweeps=True)
-    hp = default_hyperprior_params(spec, float(data.mean()))
-    states = C.init_chain_states(spec, hp, data, jax.random.PRNGKey(0), 4)
-    temps = jnp.ones((10,), jnp.float32)
-    acc = jnp.asarray([True, False, True, False])
-    states, samples = C.run_chunk_chains(spec, data, hp, states, temps, acc)
-    accP = np.asarray(samples["metrics"][:, -1, 9])  # P_mean_acceptance_rate
-    assert np.allclose(accP[[0, 2]], 1.0)
-    assert (accP[[1, 3]] < 1.0).all()
-
-
 def test_fit_parallel_bic_threads_overrides_and_full_surface():
     from bayesnmf_tpu.models.sampler import fit
 
@@ -137,13 +114,22 @@ def test_fit_parallel_bic_threads_overrides_and_full_surface():
 
 
 def test_fit_parallel_bic_falls_back_to_serial_on_unsupported_kwargs():
+    """Every GibbsSampler option is a ChainEnsemble option, so the vmapped
+    BIC search takes any kwarg a serial fit takes; the serial per-rank loop
+    is reached by asking for it (parallel_bic=False)."""
+    import inspect
+
     from bayesnmf_tpu.models.sampler import GibbsSampler, fit
 
-    with pytest.warns(UserWarning, match="fused_allocation.*serial per-rank"):
-        out = fit(_sim(), [2, 3], rank_method="BIC", convergence_control=CC,
-                  output_dir=None, post_warmup=40, seed=0,
-                  fused_allocation=False)  # GibbsSampler-only kwarg
+    def params(f):
+        return set(inspect.signature(f).parameters)
+
+    assert params(GibbsSampler.__init__) <= params(ChainEnsemble.__init__)
+    out = fit(_sim(), [2, 3], rank_method="BIC", convergence_control=CC,
+              output_dir=None, post_warmup=40, seed=0, parallel_bic=False,
+              save_all_samples=False)
     assert isinstance(out["sampler"], GibbsSampler)
+    assert {r["rank"] for r in out["results"]} == {2, 3}
 
 
 def test_compaction_preserves_per_chain_inference():

@@ -69,7 +69,7 @@ def test_rank_learning_recovers_4(example):
 
 
 # ---------------------------------------------------------------------------
-# golden values pinned by hand from the R source (VERDICT weak #7): these are
+# golden values pinned by hand from the R source: these are
 # hand-computed from get_temp_sched_ (utils.R:308-332) and
 # get_default_*_hyperprior_params_ (setup.R:123-181), NOT from running the
 # Python implementation against itself.

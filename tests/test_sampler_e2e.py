@@ -181,34 +181,3 @@ def test_get_map_custom_window():
     s2.run_gibbs_sampler()
     with pytest.raises(ValueError):
         s2.get_MAP(end_iter=30, n_samples=10)
-
-
-def test_fused_sweeps_auto_selection_policy():
-    """Pin the measured-best auto-default (VERDICT r4 item 2): the fused
-    sweep kernel turns on exactly for single-chain poisson+MH on TPU with
-    VMEM-fitting shapes, and stays off everywhere the XLA path wins."""
-    from bayesnmf_tpu.models.sampler import _auto_fused_sweeps
-
-    on = dict(likelihood="poisson", prior="truncnormal", MH=True, mesh=None,
-              K=96, G=500, platform="tpu")
-    assert _auto_fused_sweeps(**on)
-    assert _auto_fused_sweeps(**{**on, "prior": "exponential"})
-    assert _auto_fused_sweeps(**{**on, "G": 3000})  # measured VMEM limit
-    assert not _auto_fused_sweeps(**{**on, "G": 3001})
-    assert not _auto_fused_sweeps(**{**on, "MH": False})
-    assert not _auto_fused_sweeps(**{**on, "likelihood": "normal", "MH": False})
-    assert not _auto_fused_sweeps(**{**on, "platform": "cpu"})
-    assert not _auto_fused_sweeps(**{**on, "mesh": object()})
-    assert not _auto_fused_sweeps(**{**on, "prior": "gamma", "MH": False})
-
-    # default-flags sampler resolves it through the policy (CPU here -> XLA
-    # path; an explicit override always wins)
-    M, _, _ = sim_data(seed=17)
-    s = GibbsSampler(M, 2, likelihood="poisson", prior="truncnormal", MH=True,
-                     convergence_control=CC, seed=0)
-    assert s.spec.fused_sweeps == _auto_fused_sweeps(
-        "poisson", "truncnormal", True, None, M.shape[0], M.shape[1])
-    s2 = GibbsSampler(M, 2, likelihood="poisson", prior="truncnormal",
-                      MH=True, convergence_control=CC, fused_sweeps=True,
-                      seed=0)
-    assert s2.spec.fused_sweeps is True

@@ -1,7 +1,14 @@
 """Streaming-sweep equivalence: the Mhat-free Pallas reduction path must
 reproduce the XLA sweep path draw-for-draw (same keys, same sampling math —
 only the reduction provider differs, so results match to reduction-order
-ULPs)."""
+ULPs).
+
+The kernels compile for the GPU only; off the GPU every test here asks for
+the Pallas interpreter explicitly (the autouse fixture below), except the
+one that checks the refusal without it. Tests marked ``gpu`` run the
+compiled kernels and skip elsewhere."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +18,17 @@ import pytest
 from bayesnmf_tpu.config import ModelSpec, default_hyperprior_params
 from bayesnmf_tpu.models import gibbs, updates as U
 from bayesnmf_tpu.ops import math as m
+from bayesnmf_tpu.ops import pallas_stream_sweeps as S
+from stream_reference import (KERNELS, assert_matches_reference,
+                              call_kernel, check_kernels_vmapped,
+                              kernel_inputs)
+
+
+@pytest.fixture(autouse=True)
+def _interpret_off_gpu():
+    on_gpu = jax.default_backend() == "gpu"
+    with contextlib.nullcontext() if on_gpu else S.interpret_mode():
+        yield
 
 
 def _setup(K=16, N=3, G=150, prior="truncnormal", seed=0):
@@ -106,31 +124,41 @@ def test_stream_sweeps_vmapped_over_chains():
 
 
 def test_stream_sweeps_auto_selection_policy():
-    """Pin the measured-best ensemble default: streaming sweeps turn on for
-    large-G poisson+MH ensembles on TPU and nowhere else."""
-    from bayesnmf_tpu.parallel.ensemble import _auto_stream_sweeps
+    """Pin the ensemble default: on the GPU, at a K the kernels take, the
+    streaming sweeps serve rank-learning poisson+MH ensembles from the
+    measured G crossover on, and any ensemble whose XLA path would not fit
+    in device memory; never off the GPU or on a mesh."""
+    from bayesnmf_tpu.parallel.ensemble import (_STREAM_SWEEPS_MIN_G,
+                                                _XLA_BYTES_PER_CKG,
+                                                _auto_stream_sweeps)
 
+    gb80 = 80 * 2**30
     on = dict(likelihood="poisson", prior="truncnormal", MH=True, mesh=None,
-              fused_sweeps=False, G=25000, platform="tpu")
+              learning_rank=True, C=64, K=96, G=25000, platform="gpu",
+              bytes_limit=gb80)
     assert _auto_stream_sweeps(**on)
     assert _auto_stream_sweeps(**{**on, "prior": "exponential"})
-    assert not _auto_stream_sweeps(**{**on, "G": 500})
+    assert _auto_stream_sweeps(**{**on, "G": _STREAM_SWEEPS_MIN_G})
+    assert not _auto_stream_sweeps(**{**on, "G": _STREAM_SWEEPS_MIN_G - 1})
     assert not _auto_stream_sweeps(**{**on, "platform": "cpu"})
     assert not _auto_stream_sweeps(**{**on, "mesh": object()})
     assert not _auto_stream_sweeps(**{**on, "MH": False})
-    assert not _auto_stream_sweeps(**{**on, "fused_sweeps": True})
+    assert not _auto_stream_sweeps(**{**on, "K": S.MAX_K + 1})
+    # fixed rank: only where the XLA path would not fit
+    fixed = {**on, "learning_rank": False}
+    assert not _auto_stream_sweeps(**fixed)
+    C_fit = int(gb80 / (_XLA_BYTES_PER_CKG * 96 * 100_000))
+    assert not _auto_stream_sweeps(**{**fixed, "C": C_fit, "G": 100_000})
+    assert _auto_stream_sweeps(**{**fixed, "C": C_fit + 1, "G": 100_000})
+    assert not _auto_stream_sweeps(**{**fixed, "C": C_fit + 1, "G": 100_000,
+                                      "platform": "cpu"})
 
-    # spec-level guards
-    import pytest as _pytest
+    # spec-level guard
+    from bayesnmf_tpu.config import ModelError
 
-    from bayesnmf_tpu.config import ModelError, ModelSpec
-
-    with _pytest.raises(ModelError):
+    with pytest.raises(ModelError):
         ModelSpec(K=8, N=2, G=16, likelihood="poisson", prior="gamma",
                   MH=False, stream_sweeps=True)
-    with _pytest.raises(ModelError):
-        ModelSpec(K=8, N=2, G=16, likelihood="poisson", prior="truncnormal",
-                  MH=True, stream_sweeps=True, fused_sweeps=True)
 
 
 def test_chain_ensemble_runs_on_stream_path():
@@ -269,3 +297,87 @@ def test_stream_path_full_history_resume_compaction(tmp_path):
         np.asarray(e3.states["params"]["P"]))
     # the resumed run kept archiving: full history covers the whole run
     assert e3.chain(1)._archive is not None
+
+
+# ---------------------------------------------------------------------------
+# the six kernels against a float64 NumPy reference (tests/stream_reference.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", KERNELS)
+@pytest.mark.parametrize("K,N,G", [(96, 5, 1000), (20, 3, 37)])
+def test_stream_kernel_matches_reference(name, K, N, G):
+    """Ragged G (no tile multiple) and K padded to a power of two
+    (96 -> 128, 20 -> 32): padded rows and columns must not leak into any
+    sum."""
+    x = kernel_inputs(K, N, G)
+    assert_matches_reference(name, x, call_kernel(name, x))
+
+
+def test_stream_kernels_vmapped_over_chains():
+    """vmap over a chain axis with the data shared (the ensemble layout):
+    every kernel batches, and each chain's result is its own."""
+    check_kernels_vmapped(K=24, N=3, G=150, C=3)
+
+
+@pytest.mark.parametrize("K,G,expect", [
+    (96, 25000, (128, 32, 6, 131)),
+    (96, 37, (128, 32, 1, 2)),
+    (5, 10, (8, 16, 1, 1)),
+    (256, 100, (256, 16, 1, 7)),
+])
+def test_stream_geometry(K, G, expect):
+    """Rows pad to a power of two, G tiles are powers of two within the
+    block budget, and large G packs several tiles into one block."""
+    got = S.geometry(K, G)
+    assert got == expect
+    Kp, Gt, per_block, n_blocks = got
+    assert Kp * Gt <= S._TILE_ELEMS and Gt & (Gt - 1) == 0
+    assert per_block * n_blocks * Gt >= G
+
+
+def test_stream_geometry_rejects_large_K():
+    with pytest.raises(ValueError, match="K <="):
+        S.geometry(S.MAX_K + 1, 100)
+
+
+def test_stream_kernel_off_gpu_raises(monkeypatch):
+    """Off the GPU, without interpret mode asked for, a kernel refuses to
+    run and names the platform."""
+    if jax.default_backend() == "gpu":
+        pytest.skip("checks the refusal off the GPU")
+    monkeypatch.setattr(S, "_interpret", False)
+    x = kernel_inputs(8, 2, 20)
+    with pytest.raises(RuntimeError, match="'cpu'"):
+        call_kernel("pcol_stats", x)
+
+
+def test_stream_accept_flag_is_per_chain():
+    """In a vmapped chunk on the stream path, chains in warmup record
+    acceptance 1.0 (accept-all) while the others apply true MH — the flag
+    is data, not a compiled constant."""
+    from bayesnmf_tpu.parallel import chains as CH
+
+    rng = np.random.default_rng(1)
+    K, N, G = 16, 3, 24
+    P = rng.dirichlet(np.ones(K) * 0.5, N).T * 30
+    E = rng.gamma(2.0, 2.0, (N, G))
+    data = jnp.asarray(rng.poisson(P @ E).astype(np.float32))
+    spec = ModelSpec(K=K, N=N, G=G, likelihood="poisson",
+                     prior="truncnormal", MH=True, stream_sweeps=True)
+    hp = default_hyperprior_params(spec, float(data.mean()))
+    states = CH.init_chain_states(spec, hp, data, jax.random.PRNGKey(0), 4)
+    acc = jnp.asarray([True, False, True, False])
+    _, samples = CH.run_chunk_chains(spec, data, hp, states,
+                                     jnp.ones((6,), jnp.float32), acc)
+    accP = np.asarray(samples["metrics"][:, -1, 9])  # P_mean_acceptance_rate
+    assert np.allclose(accP[[0, 2]], 1.0)
+    assert (accP[[1, 3]] < 1.0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", KERNELS)
+def test_stream_kernel_compiled_matches_reference(name):
+    """The compiled Triton kernels at a real width (K=96, G=25,000, N=8)."""
+    x = kernel_inputs(96, 8, 25000)
+    assert_matches_reference(name, x, call_kernel(name, x))
